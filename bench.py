@@ -1,51 +1,72 @@
-"""Headline benchmark: forest-MCMC steps/s/chip on TreeFunction.
+"""Sampler throughput: forest-MCMC steps/s on TreeFunction, on one GPU.
 
-The north-star metric from BASELINE.json: full BARK MCMC steps (m=50 tree
-moves + 1 noise/scale move per step, N=50 training points) per second per
-chip, chains vmapped on-chip. Target: >= 1000 steps/s/chip.
+One full BARK MCMC step is m=50 tree moves + 1 noise/scale move; chains are
+vmapped on the card. Default mode prints ONE JSON line for N=50 training
+points and 64 chains. ``--curve`` sweeps N in {50, 200, 512, 1024} plus a
+mixed-categorical variant (2 of 5 features categorical with 5 levels), and
+``--curve-xl`` adds N in {2048, 4096, 8192}, the leaf-space refresh tier.
+``--out FILE`` also writes the result JSON to disk.
 
-Default mode prints ONE JSON line:
-  {"metric": "forest_mcmc_steps_per_s_per_chip", "value": N, "unit":
-   "steps/s/chip", "vs_baseline": N}
-
-``vs_baseline`` is the ratio against the 1000 steps/s/chip north-star target
-(BASELINE.md — the reference publishes no numbers of its own; its Numba
-sampler runs chains serially on CPU).
-
-``--curve`` mode (VERDICT r1 #10, extended to N=1024 per VERDICT r2 #2)
-sweeps N in {50, 200, 512, 1024} plus a mixed-categorical variant (2 of 5
-features categorical with 5 levels, matching BASELINE config #4's flavor)
-and prints one JSON array — so perf judging sees where the O(N^2) kernel
-refresh starts to bite, not a single point. Use ``--out FILE`` to also
-write the array to disk (BENCH_CURVE_r{N}.json artifacts).
+Every result names the device it ran on (platform, ``device_kind``, device
+count, and the card's name and power limit from ``nvidia-smi``). The script
+refuses to run without a GPU: a CPU number is not a device metric.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import time
+
+
+def card_line() -> str:
+    """``name, power.limit`` of the first card, as ``nvidia-smi`` prints it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0].strip()
+
+
+def require_gpu(devices) -> None:
+    """Raise SystemExit unless JAX's first device is a GPU."""
+    platform = devices[0].platform if devices else None
+    if platform != "gpu":
+        raise SystemExit(
+            f"needs an NVIDIA GPU; JAX's first device is {platform!r}"
+        )
+
+
+def device_fields(devices) -> dict:
+    """What a result reports about the devices it ran on."""
+    return {
+        "platform": devices[0].platform,
+        "device_kind": devices[0].device_kind,
+        "device_count": len(devices),
+    }
 
 
 def measure(n_train: int, cat_dim: int = 0, num_chains: int = 64,
             steps_per_call: int = 50, n_calls: int = 5,
             **sampler_overrides) -> dict:
-    """Steady-state full-MCMC steps/s/chip at one (N, domain) configuration.
+    """Steady-state full-MCMC steps/s at one (N, domain) configuration.
 
     Two untimed calls first: one to compile + mix the trees from the empty
     forest, one on the warm state to compile the steady-state shapes; the
     timed region then measures ``n_calls`` async-dispatched sampler calls
-    with a single trailing block_until_ready (CLAUDE.md: standalone jit
-    timings on TPU are floored by ~0.4 ms dispatch latency).
+    with a single trailing block_until_ready (a per-call sync would time
+    dispatch latency, not the device).
     """
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from bark_tpu.benchmarks.tree_function import TreeFunction
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.fitting.sampler import BARKModel, run_bark_sampler
-    from bark_tpu.forest import create_empty_forest
+    from bark_jax.benchmarks.tree_function import TreeFunction
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.fitting.sampler import BARKModel, run_bark_sampler
+    from bark_jax.forest import create_empty_forest
 
     cont_dim = 5 - cat_dim
     bench = TreeFunction(dim=cont_dim, cat_dim=cat_dim, num_cat=5, m=50,
@@ -80,7 +101,9 @@ def measure(n_train: int, cat_dim: int = 0, num_chains: int = 64,
         return run_bark_sampler(key, m, Xj, yj, bounds, ft, params)
 
     # compile + warm the trees (so the timed region is steady-state mixing)
+    t0 = time.perf_counter()
     samples = jax.block_until_ready(run(model, jax.random.key(0)))
+    setup_s = time.perf_counter() - t0
     warm_model = BARKModel(
         forest=jax.tree.map(lambda a: a[:, -1], samples.forest),
         noise=samples.noise[:, -1],
@@ -95,17 +118,15 @@ def measure(n_train: int, cat_dim: int = 0, num_chains: int = 64,
     dt = time.perf_counter() - t0
 
     total_steps = n_calls * num_chains * steps_per_call
-    steps_per_s = total_steps / dt
-
-    target = 1000.0  # north-star steps/s/chip (BASELINE.md)
     return {
-        "metric": "forest_mcmc_steps_per_s_per_chip",
-        "value": round(steps_per_s, 2),
-        "unit": "steps/s/chip",
-        "vs_baseline": round(steps_per_s / target, 3),
+        "metric": "forest_mcmc_steps_per_s",
+        "value": total_steps / dt,
+        "unit": "steps/s",
         "n_train": n_train,
         "cat_dim": cat_dim,
         "num_chains": num_chains,
+        "setup_s": setup_s,
+        **device_fields(jax.devices()),
     }
 
 
@@ -114,11 +135,20 @@ def main():
     parser.add_argument("--curve", action="store_true",
                         help="sweep N in {50,200,512,1024} + mixed-cat")
     parser.add_argument("--curve-xl", action="store_true",
-                        help="also sweep N in {2048,4096} (leaf refresh)")
+                        help="also sweep N in {2048,4096,8192} (leaf refresh)")
     parser.add_argument("--out", default=None,
                         help="also write the result JSON to this file")
     args = parser.parse_args()
 
+    import jax
+
+    require_gpu(jax.devices())
+    from bark_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    card = card_line()
+
+    configs = [{"n_train": 50, "cat_dim": 0}]
     if args.curve or args.curve_xl:
         configs = [
             {"n_train": 50, "cat_dim": 0},
@@ -128,22 +158,13 @@ def main():
             {"n_train": 50, "cat_dim": 2},  # mixed-categorical variant
         ]
         if args.curve_xl:
-            # past the former dense wall — served by the leaf-space
-            # refresh (r4: 1530 / 1017 steps/s/chip measured; r5 extends
-            # the measured frontier to 8192, VERDICT r4 weak #6)
             configs += [
                 {"n_train": 2048, "cat_dim": 0},
                 {"n_train": 4096, "cat_dim": 0},
                 {"n_train": 8192, "cat_dim": 0},
             ]
-        results = [measure(**c) for c in configs]
-        payload = json.dumps(results)
-    else:
-        res = measure(n_train=50)
-        # driver contract: ONE JSON line with exactly these keys
-        payload = json.dumps(
-            {k: res[k] for k in ("metric", "value", "unit", "vs_baseline")}
-        )
+    results = [dict(measure(**c), card=card) for c in configs]
+    payload = json.dumps(results if len(results) > 1 else results[0])
     print(payload)
     if args.out:
         with open(args.out, "w") as fh:

@@ -23,9 +23,9 @@ from pathlib import Path
 
 import numpy as np
 
-from bark_tpu.benchmarks import map_benchmark
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.models.surrogate import BARKSurrogate
+from bark_jax.benchmarks import map_benchmark
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.models.surrogate import BARKSurrogate
 
 logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 logger = logging.getLogger("bandit")

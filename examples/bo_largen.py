@@ -1,8 +1,7 @@
 """Large-N BO study: the full tell -> fit -> ask loop past the dense wall.
 
-VERDICT r3 #6: every large-N piece (leaf-space sampler refresh, CG
-predict, factored LR acquisition) is benchmarked in isolation elsewhere;
-this driver runs them *together* on TreeFunction at N ~ 4096 — the regime
+Every large-N piece (leaf-space sampler refresh, leaf predict, factored
+LR acquisition) runs *together* here, on TreeFunction at N ~ 4096 — the regime
 where the reference's loop dies outright (its acquisition precomputes
 dense (S, N, N) inverses, src/bark/optimizer/opt_model.py:54-59, and its
 sampler rebuilds dense kernels per step, bark_sampler.py:153-162) — and
@@ -11,7 +10,7 @@ records per-phase wall times + the incumbent trace under
 
 Usage::
 
-    python examples/bo_largen.py            # N=4080 + 6 iterations (TPU)
+    python examples/bo_largen.py            # N=4080 + 6 iterations (GPU)
     python examples/bo_largen.py --n-init 500 --num-iter 3   # smaller
 """
 
@@ -39,11 +38,17 @@ def run_study(
     num_samples: int = 4,
     acq_backend: str = "auto",
     fit_style: str = "chains",
+    return_strategy: bool = False,
 ):
-    from bark_tpu.benchmarks.tree_function import TreeFunction
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.models.surrogate import BARKSurrogate
-    from bark_tpu.strategies.tree_kernel import make_strategy
+    """Initial fit on ``n_init`` points, then ``num_iter`` ask/add rounds.
+
+    Returns the JSON-ready record, and the strategy too when
+    ``return_strategy`` is set.
+    """
+    from bark_jax.benchmarks.tree_function import TreeFunction
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.models.surrogate import BARKSurrogate
+    from bark_jax.strategies.tree_kernel import make_strategy
 
     bench = TreeFunction(dim=5, m=50, function_seed=1)
     rng = np.random.default_rng(seed)
@@ -107,22 +112,21 @@ def run_study(
             "n_train": int(len(strat.y)),
             # the proposed POINT, not just its objective value: the
             # objective is piecewise constant, so distinct proposals can
-            # share y — duplicate detection is about x (VERDICT r4 #3)
+            # share y — duplicate detection is about x
             "candidate": [round(float(v), 6) for v in np.asarray(cand)[0]],
             "ask_s": round(ask_s, 3),
             "fit_s": round(fit_s, 3),
             "y_new": float(np.asarray(y_new).reshape(-1)[0]),
             "best_y": float(strat.y.min()),
             "best_minus_probe_min": float(strat.y.min() - f_star_est),
-            # distance-from-stationarity of the fit the ask consumed
-            # (VERDICT r4 weak #2: nothing warned that the large-N
-            # posterior is a transit ensemble)
+            # distance-from-stationarity of the fit the ask consumed (the
+            # large-N posterior can still be a transit ensemble)
             "fit_diagnostics": strat.surrogate.fit_diagnostics,
         }
         records.append(rec)
         print(json.dumps(rec), flush=True)
 
-    return {
+    result = {
         "config": {
             "benchmark": "TreeFunction(dim=5, m=50, seed=1)",
             "seed": seed,
@@ -143,6 +147,7 @@ def run_study(
         "initial_fit_s": round(fit0_s, 3),
         "iterations": records,
     }
+    return (result, strat) if return_strategy else result
 
 
 def main():
@@ -156,6 +161,9 @@ def main():
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
+    from bark_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     result = run_study(
         seed=args.seed,
         n_init=args.n_init,

@@ -23,13 +23,13 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
-import yaml
 
-from bark_tpu.benchmarks import map_benchmark
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.fitting.sampler import BARKModel, run_bark_sampler_with_trace
-from bark_tpu.forest import create_empty_forest
-from bark_tpu.utils.diagnostics import mll_trace_summary
+from bark_jax.benchmarks import map_benchmark
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.fitting.sampler import BARKModel, run_bark_sampler_with_trace
+from bark_jax.forest import create_empty_forest
+from bark_jax.utils.config import load_config
+from bark_jax.utils.diagnostics import mll_trace_summary
 
 logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 logger = logging.getLogger("mcmc")
@@ -91,8 +91,6 @@ if __name__ == "__main__":
     parser.add_argument("-m", "--model-config", type=Path, required=True)
     parser.add_argument("-o", "--output", type=Path, default=Path("results"))
     args = parser.parse_args()
-    with open(args.benchmark_config) as f:
-        benchmark_config = yaml.safe_load(f)
-    with open(args.model_config) as f:
-        model_config = yaml.safe_load(f)
+    benchmark_config = load_config(args.benchmark_config)
+    model_config = load_config(args.model_config)
     main(args.seed, benchmark_config, model_config, args.output)

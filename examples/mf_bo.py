@@ -5,12 +5,12 @@ src/bark/optimizer/information_based_fidelity.py imports a BARKMOGP that
 does not exist; SURVEY §2.6). Protocol follows the reference's intent:
 
   1. fit a multi-task tree GP (booster forest + fitted index-kernel/noise
-     hypers, bark_tpu.models.mogp.LeafMOGPSurrogate ≙ LeafMOGP) on all
+     hypers, bark_jax.models.mogp.LeafMOGPSurrogate ≙ LeafMOGP) on all
      (x, fidelity, y) observations so far;
   2. pick the next x by LCB at the TARGET fidelity over a Sobol candidate
      batch (kappa = 1.96, the study default);
   3. pick the fidelity by information gain per unit cost
-     (bark_tpu.optimizer.fidelity.propose_fidelity_information_based),
+     (bark_jax.optimizer.fidelity.propose_fidelity_information_based),
      with f* optimum samples drawn from the target-fidelity joint
      posterior at the training sites;
   4. evaluate the benchmark at that fidelity, pay its cost, repeat.
@@ -43,7 +43,7 @@ def fstar_samples_mogp(mogp, X_train, num_fstar: int, rng) -> np.ndarray:
     """Optimum-value samples from the target-fidelity joint posterior
     (now a library function; kept as a thin alias for recorded-run
     compatibility)."""
-    from bark_tpu.models.sampling import fstar_samples_mogp as _fs
+    from bark_jax.models.sampling import fstar_samples_mogp as _fs
 
     return _fs(mogp, X_train, num_fstar, rng)
 
@@ -51,9 +51,9 @@ def fstar_samples_mogp(mogp, X_train, num_fstar: int, rng) -> np.ndarray:
 def run_study(seed: int, num_iter: int, num_init: int = 6,
               num_candidates: int = 256, kappa: float = 1.96,
               num_fstar: int = 16, surrogate_kwargs: dict | None = None):
-    from bark_tpu.benchmarks import map_benchmark
-    from bark_tpu.models.mogp import LeafMOGPSurrogate
-    from bark_tpu.optimizer.fidelity import propose_fidelity_information_based
+    from bark_jax.benchmarks import map_benchmark
+    from bark_jax.models.mogp import LeafMOGPSurrogate
+    from bark_jax.optimizer.fidelity import propose_fidelity_information_based
 
     bench = map_benchmark("CurrinExp2D")
     costs = bench.fidelity_costs

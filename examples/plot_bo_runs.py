@@ -72,7 +72,7 @@ def main():
     if not runs:
         raise SystemExit(f"no experiments_*.csv runs found in {directory}")
 
-    from bark_tpu.utils.plots import plt, save_fig
+    from bark_jax.utils.plots import plt, save_fig
 
     fig, ax = plt.subplots(figsize=(6, 4))
     summary = {}

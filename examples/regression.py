@@ -23,12 +23,12 @@ import time
 from pathlib import Path
 
 import numpy as np
-import yaml
 
-from bark_tpu.benchmarks import map_benchmark
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.models.surrogate import BARKPriorSurrogate, BARKSurrogate
-from bark_tpu.utils.metrics import mse, nlpd
+from bark_jax.benchmarks import map_benchmark
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.models.surrogate import BARKPriorSurrogate, BARKSurrogate
+from bark_jax.utils.config import load_config
+from bark_jax.utils.metrics import mse, nlpd
 
 logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 logger = logging.getLogger("regression")
@@ -47,12 +47,12 @@ def build_surrogate(model_config: dict, domain, seed: int):
     if name == "BARKPrior":
         return BARKPriorSurrogate(domain, seed=seed, **model_params)
     if name == "LeafGP":
-        from bark_tpu.models.leafgp import LeafGPSurrogate
+        from bark_jax.models.leafgp import LeafGPSurrogate
 
         return LeafGPSurrogate(domain, seed=seed, **model_params)
     if name == "BART":
-        from bark_tpu.fitting.bart import BARTParams
-        from bark_tpu.models.bart import BARTSurrogate
+        from bark_jax.fitting.bart import BARTParams
+        from bark_jax.models.bart import BARTSurrogate
 
         keys = BARTParams.__dataclass_fields__.keys()
         return BARTSurrogate(
@@ -121,8 +121,6 @@ if __name__ == "__main__":
         import jax
 
         jax.config.update("jax_platforms", args.platform)
-    with open(args.benchmark_config) as f:
-        benchmark_config = yaml.safe_load(f)
-    with open(args.model_config) as f:
-        model_config = yaml.safe_load(f)
+    benchmark_config = load_config(args.benchmark_config)
+    model_config = load_config(args.model_config)
     main(args.seed, benchmark_config, model_config, args.output)

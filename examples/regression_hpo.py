@@ -23,12 +23,12 @@ import logging
 from pathlib import Path
 
 import numpy as np
-import yaml
 
-from bark_tpu.benchmarks import map_benchmark
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.models.surrogate import BARKSurrogate
-from bark_tpu.utils.metrics import nlpd
+from bark_jax.benchmarks import map_benchmark
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.models.surrogate import BARKSurrogate
+from bark_jax.utils.config import load_config
+from bark_jax.utils.metrics import nlpd
 
 logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 logger = logging.getLogger("regression_hpo")
@@ -80,6 +80,5 @@ if __name__ == "__main__":
     parser.add_argument("--beta", type=float, nargs="+",
                         default=[0.5, 1.0, 2.0])
     args = parser.parse_args()
-    with open(args.benchmark_config) as f:
-        benchmark_config = yaml.safe_load(f)
+    benchmark_config = load_config(args.benchmark_config)
     main(args.seed, benchmark_config, args.alpha, args.beta, args.output)

@@ -3,8 +3,8 @@
 Parity: examples/regression/regression_samples_ablation.py:70-86 — sweep the
 number of MCMC chains and retained posterior samples and record mean NLPD on
 held-out points (the reference saves ``nlpd_seed=...npy`` per cell; here one
-``(len(chains), len(samples))`` grid per seed). On TPU every cell's chains
-run vmapped in one program, so large-chain cells cost the same wall time as
+``(len(chains), len(samples))`` grid per seed). On the accelerator every
+cell's chains run vmapped in one program, so large-chain cells cost the same wall time as
 small ones — the ablation that motivated the reference's default budget is
 nearly free here.
 
@@ -26,12 +26,12 @@ import logging
 from pathlib import Path
 
 import numpy as np
-import yaml
 
-from bark_tpu.benchmarks import map_benchmark
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.models.surrogate import BARKSurrogate
-from bark_tpu.utils.metrics import nlpd
+from bark_jax.benchmarks import map_benchmark
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.models.surrogate import BARKSurrogate
+from bark_jax.utils.config import load_config
+from bark_jax.utils.metrics import nlpd
 
 logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 logger = logging.getLogger("samples_ablation")
@@ -84,7 +84,6 @@ if __name__ == "__main__":
     parser.add_argument("--samples", type=int, nargs="+", default=[2, 5, 10])
     parser.add_argument("--num-runs", type=int, default=5)
     args = parser.parse_args()
-    with open(args.benchmark_config) as f:
-        benchmark_config = yaml.safe_load(f)
+    benchmark_config = load_config(args.benchmark_config)
     main(args.seed, benchmark_config, args.output, args.chains, args.samples,
          args.num_runs)

@@ -1,7 +1,7 @@
 """Chain-scaling report over a device mesh.
 
 Two measurements, both runnable on a virtual CPU mesh
-(XLA_FLAGS=--xla_force_host_platform_device_count=8) or a real TPU slice:
+(XLA_FLAGS=--xla_force_host_platform_device_count=8) or real GPUs:
 
 1. **Weak scaling** — sampler throughput (full MCMC steps/s) at 1, 2, 4, ...
    devices with a fixed per-device chain count, efficiency vs the
@@ -45,7 +45,7 @@ def _setup(platform: str | None, n_train: int = 50):
     import jax.numpy as jnp
     import numpy as np
 
-    from bark_tpu.benchmarks import map_benchmark
+    from bark_jax.benchmarks import map_benchmark
 
     bench = map_benchmark("TreeFunction", dim=5, m=50, function_seed=1)
     rng = np.random.default_rng(0)
@@ -62,10 +62,10 @@ def _rate(num_chains: int, n_dev: int, num_steps: int, data) -> float:
     """steps/s of a (num_chains)-chain run over an n_dev-device mesh."""
     import jax.numpy as jnp
 
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.fitting.sampler import BARKModel
-    from bark_tpu.forest import create_empty_forest
-    from bark_tpu.parallel.sharding import (
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.fitting.sampler import BARKModel
+    from bark_jax.forest import create_empty_forest
+    from bark_jax.parallel.sharding import (
         chain_mesh,
         shard_model,
         sharded_run_sampler,
@@ -161,7 +161,7 @@ if __name__ == "__main__":
     )
     args = parser.parse_args()
     if args.distributed:
-        from bark_tpu.parallel.distributed import initialize_distributed
+        from bark_jax.parallel.distributed import initialize_distributed
 
         initialize_distributed()
     data = _setup(args.platform, args.n_train)

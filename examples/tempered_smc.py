@@ -36,9 +36,9 @@ def main(seed: int, sharded: bool, num_replicas: int, num_steps: int,
     import jax
     import jax.numpy as jnp
 
-    from bark_tpu.benchmarks import map_benchmark
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.forest import create_empty_forest
+    from bark_jax.benchmarks import map_benchmark
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.forest import create_empty_forest
 
     bench = map_benchmark("TreeFunction", dim=3, m=20, function_seed=1)
     rng = np.random.default_rng(seed)
@@ -56,7 +56,7 @@ def main(seed: int, sharded: bool, num_replicas: int, num_steps: int,
     if sharded:
         from jax.sharding import Mesh
 
-        from bark_tpu.parallel.tempering import run_parallel_tempering_sharded
+        from bark_jax.parallel.tempering import run_parallel_tempering_sharded
 
         n_dev = min(num_replicas, len(jax.devices()))
         mesh = Mesh(np.array(jax.devices()[:n_dev]), ("replicas",))
@@ -75,7 +75,7 @@ def main(seed: int, sharded: bool, num_replicas: int, num_steps: int,
             "cold_noise_mean": float(np.mean(np.asarray(samples.noise))),
         }
     else:
-        from bark_tpu.parallel.tempering import run_parallel_tempering
+        from bark_jax.parallel.tempering import run_parallel_tempering
 
         forest = create_empty_forest(
             params.num_trees, params.node_limit, batch_shape=(num_replicas,)
@@ -98,7 +98,7 @@ def main(seed: int, sharded: bool, num_replicas: int, num_steps: int,
     if sharded:
         from jax.sharding import Mesh
 
-        from bark_tpu.parallel.smc import run_smc_sharded
+        from bark_jax.parallel.smc import run_smc_sharded
 
         mesh = Mesh(np.array(jax.devices()), ("particles",))
         smc = run_smc_sharded(
@@ -106,7 +106,7 @@ def main(seed: int, sharded: bool, num_replicas: int, num_steps: int,
             num_particles=num_particles,
         )
     else:
-        from bark_tpu.parallel.smc import run_smc
+        from bark_jax.parallel.smc import run_smc
 
         smc = run_smc(
             jax.random.key(seed + 1), Xj, yj, bounds, ft, params,

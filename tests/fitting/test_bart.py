@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bark_tpu.fitting.bart import (
+from bark_jax.fitting.bart import (
     BARTParams,
     bart_predict_samples,
     init_bart_state,
@@ -52,7 +52,7 @@ def test_marginal_loglik_matches_dense_mvn(seed):
 
 def test_leaf_posterior_moments_are_conjugate():
     """Gibbs draw moments == analytic N(sm2 s/(s2+n sm2), s2 sm2/(s2+n sm2))."""
-    from bark_tpu.fitting.bart import sample_leaf_values
+    from bark_jax.fitting.bart import sample_leaf_values
 
     sigma2, sigma_mu2 = jnp.float32(0.5), 0.04
     n_l = jnp.asarray([3.0, 0.0, 7.0, 1.0])
@@ -153,9 +153,9 @@ def test_bart_padding_is_inert():
 
 def test_bart_surrogate_end_to_end_and_grid_ucb():
     """BARTSurrogate fits, predicts in original units, and drives GridUCB."""
-    from bark_tpu.domain import Domain, ContinuousInput
-    from bark_tpu.models.bart import BARTSurrogate
-    from bark_tpu.strategies.baselines import GridUCBStrategy
+    from bark_jax.domain import Domain, ContinuousInput
+    from bark_jax.models.bart import BARTSurrogate
+    from bark_jax.strategies.baselines import GridUCBStrategy
 
     domain = Domain([ContinuousInput("x0", (0.0, 1.0)),
                      ContinuousInput("x1", (0.0, 1.0))])

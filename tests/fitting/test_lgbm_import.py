@@ -1,6 +1,6 @@
 """LightGBM dump importer: arbitrary-subset categorical splits.
 
-VERDICT r4 missing #3: the reference's LightGBM path carries category-
+The reference's LightGBM path carries category-
 subset splits into the forest encoding; the repo's sklearn fallback
 could only express contiguous-prefix masks. `lgbm_dump_to_forest`
 consumes the documented ``dump_model()`` JSON (exercised here on
@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bark_tpu.fitting.booster import fit_booster_forest, lgbm_dump_to_forest
-from bark_tpu.forest import route_forest
+from bark_jax.fitting.booster import fit_booster_forest, lgbm_dump_to_forest
+from bark_jax.forest import route_forest
 
 
 def _dump():
@@ -87,7 +87,7 @@ def test_category_index_beyond_bitmask_range_rejected():
 
 
 def test_lightgbm_backend_guarded():
-    from bark_tpu.domain import ContinuousInput, Domain
+    from bark_jax.domain import ContinuousInput, Domain
 
     dom = Domain([ContinuousInput("x_0", (0.0, 1.0))])
     X = np.random.default_rng(0).uniform(size=(10, 1)).astype(np.float32)

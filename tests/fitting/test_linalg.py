@@ -2,14 +2,14 @@
 
 Parity with the reference's tests/bark_fitting/test_quick_inverse.py:21-101:
 low-rank inverse and determinant updates are checked against dense numpy
-recomputation, including the padded-zero-column case the TPU kernels rely on.
+recomputation, including the padded-zero-column case the sampler relies on.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bark_tpu.ops.linalg import (
+from bark_jax.ops.linalg import (
     chol_inv_logdet,
     gp_posterior,
     kernel_matrix,
@@ -158,7 +158,7 @@ def test_kernel_matrix():
 def test_robust_chol_escalates_jitter_on_singular_input():
     """A singular K fails the plain factorization (NaNs) but the escalated
     jitter recovers a finite, accurate inverse."""
-    from bark_tpu.ops.linalg import chol_inv_logdet, robust_chol_inv_logdet
+    from bark_jax.ops.linalg import chol_inv_logdet, robust_chol_inv_logdet
 
     n = 8
     u = jnp.asarray(np.random.default_rng(0).normal(size=(n, 1)), jnp.float32)
@@ -169,7 +169,7 @@ def test_robust_chol_escalates_jitter_on_singular_input():
     assert np.isfinite(float(logdet))
     assert np.isfinite(np.asarray(K_inv)).all()
     # the recovered inverse solves the escalated system accurately
-    from bark_tpu.ops.linalg import JITTER
+    from bark_jax.ops.linalg import JITTER
 
     K_j = K + 1e2 * JITTER * jnp.eye(n, dtype=jnp.float32)
     np.testing.assert_allclose(
@@ -178,7 +178,7 @@ def test_robust_chol_escalates_jitter_on_singular_input():
 
 
 def test_robust_chol_matches_plain_on_healthy_input():
-    from bark_tpu.ops.linalg import chol_inv_logdet, robust_chol_inv_logdet
+    from bark_jax.ops.linalg import chol_inv_logdet, robust_chol_inv_logdet
 
     rng = np.random.default_rng(1)
     A = rng.normal(size=(6, 6))
@@ -192,7 +192,7 @@ def test_robust_chol_matches_plain_on_healthy_input():
 def test_blocked_cholesky_matches_xla():
     """blocked_cholesky == jnp.linalg.cholesky up to float association,
     across batch shapes, non-divisible fallback, and both panel sizes."""
-    from bark_tpu.ops.linalg import blocked_cholesky
+    from bark_jax.ops.linalg import blocked_cholesky
 
     rng = np.random.default_rng(2)
     for batch, n in [((3,), 512), ((2, 2), 256), ((), 384), ((4,), 96)]:
@@ -207,8 +207,25 @@ def test_blocked_cholesky_matches_xla():
             ), "blocked factor must be lower-triangular"
 
 
+@pytest.mark.parametrize("block", [64, 128])
+def test_blocked_cholesky_float32_matches_xla(block):
+    """The sampler's own dtype: float32 panels at the small block sizes,
+    over a batch, against XLA's Cholesky."""
+    from bark_jax.ops.linalg import blocked_cholesky
+
+    rng = np.random.default_rng(1)
+    a = jnp.asarray(rng.normal(size=(4, 512, 24)), jnp.float32)
+    K = a @ jnp.swapaxes(a, -1, -2) / 24.0 + 0.5 * jnp.eye(
+        512, dtype=jnp.float32
+    )
+    L = np.asarray(blocked_cholesky(K, block=block))
+    assert L.dtype == np.float32
+    np.testing.assert_allclose(L, np.asarray(jnp.linalg.cholesky(K)), atol=2e-4)
+    np.testing.assert_array_equal(np.triu(L, 1), 0.0)
+
+
 def test_chol_inv_logdet_blocked_matches_plain():
-    from bark_tpu.ops.linalg import chol_inv_logdet
+    from bark_jax.ops.linalg import chol_inv_logdet
 
     rng = np.random.default_rng(3)
     a = jnp.asarray(rng.normal(size=(2, 256, 16)))
@@ -226,9 +243,9 @@ def test_sampler_step_invariant_to_chol_block():
     association to compare accept decisions and carried state tightly)."""
     import jax
 
-    from bark_tpu.fitting import sampler as S
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.fitting.prior import sample_forest_prior
+    from bark_jax.fitting import sampler as S
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.fitting.prior import sample_forest_prior
 
     N, D, m = 512, 3, 8
     key = jax.random.PRNGKey(0)

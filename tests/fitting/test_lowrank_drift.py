@@ -1,6 +1,6 @@
 """Bound the in-scan Sherman-Morrison carry error at low noise (256-511 tier).
 
-VERDICT r4 weak #4: ``results/ab_r4/leaf_numerics.md`` asserts the dense
+``results/ab_r4/leaf_numerics.md`` asserts the dense
 tiers' explicit-inverse in-scan carry error is "negligible below N=512"
 without a test, while the paper-budget parity run itself realized
 nu ~ 0.016. Here the claim becomes a tested invariant: at N=384 (the
@@ -20,15 +20,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bark_tpu.benchmarks.tree_function import TreeFunction
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.fitting.sampler import (
+from bark_jax.benchmarks.tree_function import TreeFunction
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.fitting.sampler import (
     BARKModel,
     _tree_moves_rank1,
     init_chain_state,
     run_bark_sampler,
 )
-from bark_tpu.forest import create_empty_forest, gram_from_leaves
+from bark_jax.forest import create_empty_forest, gram_from_leaves
 
 N = 384
 M = 50

@@ -13,10 +13,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from bark_tpu import native
-from bark_tpu.domain import CategoricalInput, ContinuousInput, Domain
-from bark_tpu.fitting.booster import fit_booster_forest
-from bark_tpu.forest import route_forest
+from bark_jax import native
+from bark_jax.domain import CategoricalInput, ContinuousInput, Domain
+from bark_jax.fitting.booster import fit_booster_forest
+from bark_jax.forest import route_forest
 
 pytestmark = pytest.mark.skipif(
     not native.gbdt_available(), reason="no C++ toolchain on this host"
@@ -72,7 +72,7 @@ def test_router_agreement_with_jax_forest():
     X, y, ft, cs = _data(seed=1)
     arrs = native.fit_gbdt(X, y, ft, cs, num_rounds=20, max_depth=3)
     leaves_native, _ = native.predict_gbdt(X, arrs, ft)
-    from bark_tpu.forest import forest_from_numpy
+    from bark_jax.forest import forest_from_numpy
 
     forest = forest_from_numpy({k: v for k, v in arrs.items() if k != "leaf_value"})
     leaves_jax = np.asarray(

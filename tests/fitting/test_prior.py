@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bark_tpu.domain import CategoricalInput, ContinuousInput, Domain
-from bark_tpu.fitting.prior import sample_forest_prior, sample_noise_prior
+from bark_jax.domain import CategoricalInput, ContinuousInput, Domain
+from bark_jax.fitting.prior import sample_forest_prior, sample_noise_prior
 
 
 def test_root_split_frequency_matches_prior():

@@ -11,8 +11,8 @@ import pytest
 
 import functools
 
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.fitting.proposals import (
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.fitting.proposals import (
     masked_choice,
     propose_tree as _propose_tree_raw,
     sample_splitting_rule,
@@ -21,9 +21,9 @@ from bark_tpu.fitting.proposals import (
 propose_tree = functools.partial(
     jax.jit, static_argnames=("params",)
 )(_propose_tree_raw)
-from bark_tpu.fitting.traversal import singly_internal_mask, terminal_mask
-from bark_tpu.forest import FEAT_CONT, FEAT_INT, Forest, create_empty_forest
-from bark_tpu.utils.build import LEAF, build_forest
+from bark_jax.fitting.traversal import singly_internal_mask, terminal_mask
+from bark_jax.forest import FEAT_CONT, FEAT_INT, Forest, create_empty_forest
+from bark_jax.utils.build import LEAF, build_forest
 
 
 def single_tree(specs=None):

@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.stats as stats
 
-from bark_tpu.fitting.noise_scale import get_noise_scale_proposal
-from bark_tpu.fitting.params import SamplerParams
+from bark_jax.fitting.noise_scale import get_noise_scale_proposal
+from bark_jax.fitting.params import SamplerParams
 
 CHAINS, STEPS, BURN = 32, 4000, 1000
 

@@ -15,16 +15,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bark_tpu.domain import CategoricalInput, ContinuousInput, Domain, IntegerInput
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.fitting.sampler import (
+from bark_jax.domain import CategoricalInput, ContinuousInput, Domain, IntegerInput
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.fitting.sampler import (
     BARKModel,
     init_chain_state,
     run_bark_sampler,
     step,
 )
-from bark_tpu.forest import create_empty_forest, gram_from_leaves, route_forest
-from bark_tpu.ops.linalg import chol_inv_logdet, kernel_matrix
+from bark_jax.forest import create_empty_forest, gram_from_leaves, route_forest
+from bark_jax.ops.linalg import chol_inv_logdet, kernel_matrix
 
 
 def make_problem(n=25, seed=0):
@@ -357,7 +357,7 @@ def test_leaf_refresh_capacity_guard():
     """With a leaf_budget barely above the initial leaf count, the move scan
     must MH-reject grows at capacity: total leaves never exceed the budget
     and the chain stays finite (the truncated-prior semantics, params.py)."""
-    from bark_tpu.fitting.traversal import terminal_mask
+    from bark_jax.fitting.traversal import terminal_mask
 
     dom, X, y = make_problem(n=20, seed=8)
     bounds = jnp.asarray(dom.bounds("bitmask"))
@@ -388,7 +388,7 @@ def test_auto_refresh_resolves_to_leaf_at_large_n():
     scan) once padded N >= 256 (the r5 mid-tier A/B moved the threshold
     down from 512) — same keys => trajectories identical to an explicit
     coeff+leaf run — and to the dense onesolve refresh below."""
-    from bark_tpu.fitting.sampler import _resolve_styles
+    from bark_jax.fitting.sampler import _resolve_styles
 
     p = SamplerParams(num_trees=5)
     lo = _resolve_styles(p, 224)
@@ -468,7 +468,7 @@ def test_resolve_styles_honors_explicit_overrides():
     overrides like measure(scan_style='lowrank') must measure what they
     say — r4 code-review finding), and explicit refresh styles are
     preserved at every N."""
-    from bark_tpu.fitting.sampler import _resolve_styles
+    from bark_jax.fitting.sampler import _resolve_styles
 
     # explicit scan pins at large N -> refresh auto falls back to the
     # dense factor-MLL refresh
@@ -493,7 +493,7 @@ def test_deep_prior_widens_auto_leaf_budget():
     """Auto leaf budgets were calibrated at the default depth prior; a
     deeper-tree prior (alpha>0.95 or beta<2) must get doubled headroom
     rather than silently truncating (r4 code-review finding)."""
-    from bark_tpu.fitting.sampler import _leaf_budget
+    from bark_jax.fitting.sampler import _leaf_budget
 
     base = _leaf_budget(SamplerParams(num_trees=50), 1024)
     deep = _leaf_budget(SamplerParams(num_trees=50, alpha=0.99), 1024)

@@ -4,12 +4,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bark_tpu.benchmarks import map_benchmark
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.fitting.sampler import init_chain_state, step
-from bark_tpu.forest import create_empty_forest
-from bark_tpu.parallel.smc import run_smc, systematic_resample
-from bark_tpu.parallel.tempering import (
+from bark_jax.benchmarks import map_benchmark
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.fitting.sampler import init_chain_state, step
+from bark_jax.forest import create_empty_forest
+from bark_jax.parallel.smc import run_smc, systematic_resample
+from bark_jax.parallel.tempering import (
     geometric_ladder,
     run_parallel_tempering,
     swap_move,

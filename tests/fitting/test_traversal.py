@@ -6,13 +6,13 @@ Oracle semantics: src/bark/fitting/tree_traversal.py:28-86.
 import jax.numpy as jnp
 import numpy as np
 
-from bark_tpu.fitting.traversal import (
+from bark_jax.fitting.traversal import (
     node_subspace,
     singly_internal_mask,
     terminal_mask,
 )
-from bark_tpu.forest import FEAT_CAT, FEAT_CONT, FEAT_INT
-from bark_tpu.utils.build import LEAF, build_forest
+from bark_jax.forest import FEAT_CAT, FEAT_CONT, FEAT_INT
+from bark_jax.utils.build import LEAF, build_forest
 
 
 def get_tree(forest, j):
@@ -114,16 +114,16 @@ def test_incremental_subspaces_match_walk():
     mixed cont/int/cat features."""
     import jax
 
-    from bark_tpu.domain import (
+    from bark_jax.domain import (
         CategoricalInput,
         ContinuousInput,
         Domain,
         IntegerInput,
     )
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.fitting.proposals import propose_tree_packed
-    from bark_tpu.fitting.traversal import all_node_subspaces
-    from bark_tpu.forest import create_empty_forest, pack_forest, unpack_forest
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.fitting.proposals import propose_tree_packed
+    from bark_jax.fitting.traversal import all_node_subspaces
+    from bark_jax.forest import create_empty_forest, pack_forest, unpack_forest
 
     dom = Domain(
         [

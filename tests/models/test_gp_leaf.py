@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bark_tpu.benchmarks.tree_function import TreeFunction
-from bark_tpu.fitting.prior import sample_forest_prior
-from bark_tpu.models.gp import forest_predict, forest_predict_leaf
+from bark_jax.benchmarks.tree_function import TreeFunction
+from bark_jax.fitting.prior import sample_forest_prior
+from bark_jax.models.gp import forest_predict, forest_predict_leaf
 
 
 def _setup(N=300, M=40, seed=0):
@@ -60,8 +60,8 @@ def test_leaf_predict_padding_inert():
 
 
 def test_surrogate_leaf_backend_switch():
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.models.surrogate import BARKSurrogate
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.models.surrogate import BARKSurrogate
 
     bench = TreeFunction(dim=2, m=8, function_seed=1)
     rng = np.random.default_rng(0)

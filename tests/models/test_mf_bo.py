@@ -41,8 +41,8 @@ def test_mf_bo_study_loop():
 
 def test_fstar_samples_are_plausible_minima():
     mf_bo = _load_mf_bo()
-    from bark_tpu.benchmarks import map_benchmark
-    from bark_tpu.models.mogp import LeafMOGPSurrogate
+    from bark_jax.benchmarks import map_benchmark
+    from bark_jax.models.mogp import LeafMOGPSurrogate
 
     bench = map_benchmark("CurrinExp2D")
     rng = np.random.default_rng(0)
@@ -71,12 +71,12 @@ def test_fstar_samples_are_plausible_minima():
 def test_ask_cold_start_partial_fidelities():
     """ask() must round-robin fidelities while some task is unobserved.
 
-    Round-3 regression (VERDICT Weak #3): with >=2 observations at one
+    Round-3 regression: with >=2 observations at one
     fidelity, `len(self.y or [])` raised "truth value of an array ...
     is ambiguous" — exactly the state the round-robin branch serves.
     """
-    from bark_tpu.benchmarks import map_benchmark
-    from bark_tpu.strategies.multi_fidelity import MultiFidelityStrategy
+    from bark_jax.benchmarks import map_benchmark
+    from bark_jax.strategies.multi_fidelity import MultiFidelityStrategy
 
     bench = map_benchmark("CurrinExp2D")
     rng = np.random.default_rng(0)

@@ -4,18 +4,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bark_tpu.benchmarks import map_benchmark
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.models.leafgp import LeafGPSurrogate
-from bark_tpu.models.mogp import LeafMOGPSurrogate, task_covariance
-from bark_tpu.models.sampling import (
+from bark_jax.benchmarks import map_benchmark
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.models.leafgp import LeafGPSurrogate
+from bark_jax.models.mogp import LeafMOGPSurrogate, task_covariance
+from bark_jax.models.sampling import (
     construct_nystrom_features,
     generate_fstar_samples,
     nystrom_samples,
 )
-from bark_tpu.models.surrogate import BARKSurrogate
-from bark_tpu.optimizer.fidelity import propose_fidelity_information_based
-from bark_tpu.utils.metrics import mse
+from bark_jax.models.surrogate import BARKSurrogate
+from bark_jax.optimizer.fidelity import propose_fidelity_information_based
+from bark_jax.utils.metrics import mse
 
 
 def test_leafgp_beats_mean_predictor():
@@ -85,7 +85,7 @@ def test_nystrom_features_approximate_kernel():
     Z = tx[:15]
     feats = construct_nystrom_features(sur.model, Z, Z, ft)
     # phi(Z) phi(Z)^T must reproduce K_ZZ (exact on the inducing set)
-    from bark_tpu.forest import gram_from_leaves, route_forest
+    from bark_jax.forest import gram_from_leaves, route_forest
 
     forest0 = jax.tree.map(lambda a: a.reshape(-1, 8, 64)[0], sur.model.forest)
     leaves = route_forest(forest0, Z, ft)
@@ -119,11 +119,11 @@ def test_leaf_function_samples_match_posterior_moments():
     MC error — no eigenvalue clamping anywhere (A is SPD by construction)."""
     import jax.numpy as jnp
 
-    from bark_tpu.benchmarks.tree_function import TreeFunction
-    from bark_tpu.fitting.prior import sample_forest_prior
-    from bark_tpu.fitting.sampler import BARKModel
-    from bark_tpu.models.gp import forest_predict_leaf
-    from bark_tpu.models.sampling import (
+    from bark_jax.benchmarks.tree_function import TreeFunction
+    from bark_jax.fitting.prior import sample_forest_prior
+    from bark_jax.fitting.sampler import BARKModel
+    from bark_jax.models.gp import forest_predict_leaf
+    from bark_jax.models.sampling import (
         generate_fstar_samples,
         generate_fstar_samples_leaf,
         leaf_function_samples,

@@ -1,6 +1,6 @@
 """The 32-bucket padding must be exactly inert end-to-end.
 
-VERDICT r1 weak #7: the padding invariant (masked rows drop out of the
+The padding invariant (masked rows drop out of the
 kernel, MLL and posterior) was tested for the sampler but not for the
 *predict* and *acquisition* paths together with the no-null rescaling.
 These tests fit a padded surrogate and assert its predictions and
@@ -12,11 +12,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bark_tpu.benchmarks import map_benchmark
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.models.gp import forest_predict
-from bark_tpu.models.surrogate import BARKSurrogate
-from bark_tpu.optimizer.acquisition import build_acquisition, evaluate_acquisition
+from bark_jax.benchmarks import map_benchmark
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.models.gp import forest_predict
+from bark_jax.models.surrogate import BARKSurrogate
+from bark_jax.optimizer.acquisition import build_acquisition, evaluate_acquisition
 
 PARAMS = SamplerParams(
     warmup_steps=20, num_samples=5, steps_per_sample=3, num_chains=2, num_trees=10

@@ -8,11 +8,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bark_tpu.benchmarks.tree_function import TreeFunction
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.models.gp import forest_predict, mixture_of_gaussians_as_normal
-from bark_tpu.models.surrogate import BARKPriorSurrogate, BARKSurrogate
-from bark_tpu.utils.metrics import mse, nlpd
+from bark_jax.benchmarks.tree_function import TreeFunction
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.models.gp import forest_predict, mixture_of_gaussians_as_normal
+from bark_jax.models.surrogate import BARKPriorSurrogate, BARKSurrogate
+from bark_jax.utils.metrics import mse, nlpd
 
 
 def make_data(seed=0, n_train=50, n_test=80, dim=3, m=20):
@@ -63,7 +63,7 @@ def test_padding_equivalence_in_predict():
     train_x, train_y = sur.train_data
     assert train_x.shape[0] == 32  # bucketed
 
-    from bark_tpu.fitting.prior import sample_forest_prior
+    from bark_jax.fitting.prior import sample_forest_prior
 
     ft = jnp.asarray(bench.domain.feature_types())
     forest = sample_forest_prior(

@@ -4,15 +4,15 @@ The PT ladder machinery itself is oracle-tested in tests/fitting and
 tests/parallel; here the surrogate-level wiring is covered: cold-chain
 samples flow into the standard BARKModel shape, warm starts work, the
 BO strategy runs end-to-end on a tempered surrogate, and every fit
-records split-R-hat/ESS diagnostics (VERDICT r4 weak #2).
+records split-R-hat/ESS diagnostics.
 """
 
 import numpy as np
 import pytest
 
-from bark_tpu.benchmarks.tree_function import TreeFunction
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.models.surrogate import BARKSurrogate
+from bark_jax.benchmarks.tree_function import TreeFunction
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.models.surrogate import BARKSurrogate
 
 FAST = SamplerParams(
     warmup_steps=6, num_samples=3, steps_per_sample=2, num_chains=2,
@@ -73,7 +73,7 @@ def test_unknown_fit_style_rejected():
 
 
 def test_tempered_strategy_end_to_end():
-    from bark_tpu.strategies.tree_kernel import TreeKernelStrategy
+    from bark_jax.strategies.tree_kernel import TreeKernelStrategy
 
     bench, X, y = _problem(n=12)
     sur = BARKSurrogate(

@@ -4,14 +4,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bark_tpu.forest import gram_from_leaves
-from bark_tpu.ops.iterative import (
+from bark_jax.forest import gram_from_leaves
+from bark_jax.ops.iterative import (
     cg_posterior,
     cg_solve,
     leaf_features,
     shard_posterior_inputs,
 )
-from bark_tpu.ops.linalg import JITTER
+from bark_jax.ops.linalg import JITTER
 
 NODE_LIMIT = 16
 
@@ -31,7 +31,7 @@ def test_factored_matvec_matches_dense():
     rng = np.random.default_rng(0)
     leaves = _random_leaves(rng, 40)
     v = jnp.asarray(rng.normal(size=40), jnp.float32)
-    from bark_tpu.ops.iterative import kernel_matvec
+    from bark_jax.ops.iterative import kernel_matvec
 
     Z = leaf_features(leaves, NODE_LIMIT)
     got = kernel_matvec(Z, 0.1, 1.3, v)
@@ -118,9 +118,9 @@ def test_cg_posterior_sharded_matches_single():
 
 def test_surrogate_cg_backend_matches_dense():
     """forest_predict_cg == forest_predict through a real fitted surrogate."""
-    from bark_tpu.benchmarks import map_benchmark
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.models.surrogate import BARKSurrogate
+    from bark_jax.benchmarks import map_benchmark
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.models.surrogate import BARKSurrogate
 
     bench = map_benchmark("TreeFunction", dim=2, m=6, function_seed=1)
     rng = np.random.default_rng(0)

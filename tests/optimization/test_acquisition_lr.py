@@ -1,6 +1,6 @@
 """Factored (matrix-free) acquisition vs the dense builder.
 
-VERDICT r2 #1: the low-rank path must score identically to the dense
+The low-rank path must score identically to the dense
 (S, N, N) path — asserted here at N=512 (the criterion size) and at small N
 with mixed categorical features, padding masks, and the all-null-forest
 edge case. The dense path is the oracle; the reference has no large-N path
@@ -12,16 +12,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bark_tpu.benchmarks.tree_function import TreeFunction
-from bark_tpu.fitting.prior import sample_forest_prior
-from bark_tpu.fitting.sampler import BARKModel
-from bark_tpu.forest import create_empty_forest
-from bark_tpu.optimizer.acquisition import (
+from bark_jax.benchmarks.tree_function import TreeFunction
+from bark_jax.fitting.prior import sample_forest_prior
+from bark_jax.fitting.sampler import BARKModel
+from bark_jax.forest import create_empty_forest
+from bark_jax.optimizer.acquisition import (
     build_acquisition,
     build_acquisition_lr,
     evaluate_acquisition,
 )
-from bark_tpu.optimizer.search import propose
+from bark_jax.optimizer.search import propose
 
 MAX_DEPTH = 8
 
@@ -147,8 +147,8 @@ def test_propose_accepts_lr_state():
 
 
 def test_strategy_lowrank_ask():
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.strategies.tree_kernel import TreeKernelStrategy
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.strategies.tree_kernel import TreeKernelStrategy
 
     bench = TreeFunction(dim=2, function_seed=13)
     dom = bench.domain
@@ -202,12 +202,12 @@ def test_thompson_acquisition_and_strategy():
     strategy's acq_backend="thompson" runs ask/tell end-to-end."""
     import jax.numpy as jnp
 
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.optimizer.acquisition import (
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.optimizer.acquisition import (
         build_acquisition_ts,
         evaluate_acquisition,
     )
-    from bark_tpu.strategies.tree_kernel import TreeKernelStrategy
+    from bark_jax.strategies.tree_kernel import TreeKernelStrategy
 
     bench = TreeFunction(dim=2, function_seed=13)
     dom = bench.domain

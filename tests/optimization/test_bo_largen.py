@@ -1,4 +1,4 @@
-"""Large-N BO driver smoke (VERDICT r3 #6 integration evidence).
+"""Large-N BO driver smoke.
 
 Runs the committed examples/bo_largen.py loop at reduced size with the
 large-N backends forced (LR acquisition), checking the phases engage and

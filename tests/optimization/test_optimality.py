@@ -10,12 +10,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bark_tpu.benchmarks.tree_function import TreeFunction
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.fitting.sampler import BARKModel, run_bark_sampler
-from bark_tpu.forest import create_empty_forest
-from bark_tpu.optimizer.acquisition import build_acquisition, evaluate_acquisition
-from bark_tpu.optimizer.search import propose
+from bark_jax.benchmarks.tree_function import TreeFunction
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.fitting.sampler import BARKModel, run_bark_sampler
+from bark_jax.forest import create_empty_forest
+from bark_jax.optimizer.acquisition import build_acquisition, evaluate_acquisition
+from bark_jax.optimizer.search import propose
 
 
 def test_proposal_beats_random_candidates():

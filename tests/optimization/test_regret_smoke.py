@@ -1,4 +1,4 @@
-"""End-to-end BO regret smoke test (VERDICT r1 #5).
+"""End-to-end BO regret smoke test.
 
 A miniature version of the committed study (REGRET_r02.md): BARK and
 Random run the same TreeFunction budget at matched seeds; BARK must find
@@ -28,9 +28,9 @@ _SCRIPT = """
 import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
-from bark_tpu.benchmarks import map_benchmark
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.strategies.tree_kernel import make_strategy
+from bark_jax.benchmarks import map_benchmark
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.strategies.tree_kernel import make_strategy
 
 bench = map_benchmark("TreeFunction", dim=2, m=10, function_seed=1)
 rng = np.random.default_rng(0)

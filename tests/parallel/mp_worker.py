@@ -1,6 +1,6 @@
 """Worker for the two-process jax.distributed test (run via subprocess).
 
-Each process calls bark_tpu's ``initialize_distributed`` (args from env),
+Each process calls bark_jax's ``initialize_distributed`` (args from env),
 builds the global chain mesh spanning both processes, and runs the
 sharded BARK sampler with chains distributed across all global devices.
 The psum-reduced diagnostics are replicated, so both processes must print
@@ -17,7 +17,7 @@ import numpy as np
 
 
 def main():
-    from bark_tpu.parallel.distributed import (
+    from bark_jax.parallel.distributed import (
         global_chain_mesh,
         initialize_distributed,
     )
@@ -28,11 +28,11 @@ def main():
 
     import jax.numpy as jnp
 
-    from bark_tpu.benchmarks import map_benchmark
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.fitting.sampler import BARKModel
-    from bark_tpu.forest import create_empty_forest
-    from bark_tpu.parallel.sharding import shard_model, sharded_run_sampler
+    from bark_jax.benchmarks import map_benchmark
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.fitting.sampler import BARKModel
+    from bark_jax.forest import create_empty_forest
+    from bark_jax.parallel.sharding import shard_model, sharded_run_sampler
 
     bench = map_benchmark("TreeFunction", dim=2, m=4, function_seed=1)
     rng = np.random.default_rng(0)

@@ -5,7 +5,7 @@ processes, each with 2 virtual CPU devices, joined by
 ``initialize_distributed`` into one 4-device runtime; the sharded sampler
 runs chains across all of them and both processes must report identical
 psum-reduced diagnostics. Uses the Gloo CPU collective backend — the same
-code path Cloud TPU pods take through jax.distributed, minus ICI.
+jax.distributed code path a multi-host GPU run takes, with NCCL there.
 """
 
 import os

@@ -1,6 +1,6 @@
 """Multi-device coverage of the large-N leaf-tier lowering.
 
-VERDICT r4 weak #5: every sharded test used N <= 16, so the shipped
+Every sharded test used N <= 16, so the shipped
 N >= 512 default (refresh_style="leaf" + coeff scan) had never executed
 under shard_map/psum anywhere. Here the chains-mesh sampler runs at
 padded N = 512 on the 8-virtual-device CPU mesh with the auto-resolved
@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bark_tpu.benchmarks import map_benchmark
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.fitting.sampler import BARKModel, _resolve_styles, run_bark_sampler
-from bark_tpu.forest import create_empty_forest
-from bark_tpu.parallel.sharding import (
+from bark_jax.benchmarks import map_benchmark
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.fitting.sampler import BARKModel, _resolve_styles, run_bark_sampler
+from bark_jax.forest import create_empty_forest
+from bark_jax.parallel.sharding import (
     chain_mesh,
     shard_model,
     sharded_run_sampler,

@@ -8,8 +8,8 @@ its declared f value (skipped where no optimum is implemented).
 import numpy as np
 import pytest
 
-from bark_tpu.benchmarks import BENCHMARK_MAP, map_benchmark
-from bark_tpu.constraints import total_violation
+from bark_jax.benchmarks import BENCHMARK_MAP, map_benchmark
+from bark_jax.constraints import total_violation
 
 UNAVAILABLE = set()
 NEEDS_DATA = {"DatasetBenchmark"}
@@ -90,7 +90,7 @@ def test_cco_simulator_against_hand_oracle():
     """RSRPSimulator on a hand-built 2-sector map: serving-cell max,
     watt-domain interference, and fractional-downtilt lerp all match a
     direct computation (parity: simulated_rsrp.py:345-399,428-458)."""
-    from bark_tpu.benchmarks.cco import RSRPSimulator, dbm_to_watt, watt_to_dbm
+    from bark_jax.benchmarks.cco import RSRPSimulator, dbm_to_watt, watt_to_dbm
 
     rng = np.random.default_rng(3)
     maps = {}
@@ -142,7 +142,7 @@ def test_dataset_benchmark_roundtrip():
     # reference parity: sequential sampling + row-lookup f
     # (src/bofire_mixed/benchmarks/dataset.py:131-157)
     pd = pytest.importorskip("pandas")
-    from bark_tpu.benchmarks.dataset import dataset_domain
+    from bark_jax.benchmarks.dataset import dataset_domain
 
     rng = np.random.default_rng(0)
     dom = dataset_domain("Abalone")

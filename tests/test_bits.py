@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bark_tpu.fitting.bits import next_power_of_2, popcount, sample_binary_mask
+from bark_jax.fitting.bits import next_power_of_2, popcount, sample_binary_mask
 
 
 @pytest.mark.parametrize("x,expect", [(0, 1), (1, 2), (2, 4), (3, 4), (4, 8), (5, 8), (15, 16), (16, 32)])

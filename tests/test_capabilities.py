@@ -3,27 +3,27 @@
 Parity: src/bofire_mixed/data_models/strategies/tree_kernel.py:66-86 —
 strategies declare supported constraint/feature types and constructing
 one on an unsupported domain fails immediately with a clear message
-(VERDICT r4 missing #2: misuse previously surfaced as a deep failure or
-the silent random-fallback warning).
+(misuse previously surfaced as a deep failure or the silent
+random-fallback warning).
 """
 
 import numpy as np
 import pytest
 
-from bark_tpu.constraints import (
+from bark_jax.constraints import (
     FunctionalInequalityConstraint,
     LinearEqualityConstraint,
     LinearInequalityConstraint,
     NChooseKConstraint,
 )
-from bark_tpu.domain import CategoricalInput, ContinuousInput, Domain
-from bark_tpu.strategies.baselines import GridUCBStrategy, RelaxedGPStrategy
-from bark_tpu.strategies.capabilities import (
+from bark_jax.domain import CategoricalInput, ContinuousInput, Domain
+from bark_jax.strategies.baselines import GridUCBStrategy, RelaxedGPStrategy
+from bark_jax.strategies.capabilities import (
     supports_constraint,
     supports_feature,
     validate_domain,
 )
-from bark_tpu.strategies.tree_kernel import RandomStrategy, TreeKernelStrategy
+from bark_jax.strategies.tree_kernel import RandomStrategy, TreeKernelStrategy
 
 
 def _constrained_domain():

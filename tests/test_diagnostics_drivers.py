@@ -1,5 +1,5 @@
-"""Smoke tests for the notebook-tier diagnostics drivers (VERDICT r4
-missing #1): the prior/proposal study and the cross-seed BO-runs plotter.
+"""Smoke tests for the notebook-tier diagnostics drivers: the
+prior/proposal study and the cross-seed BO-runs plotter.
 
 Both run in subprocesses: the suite's x64/virtual-device config must not
 leak into the drivers' f32 CPU environment (CLAUDE.md).

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bark_tpu.forest import (
+from bark_jax.forest import (
     FEAT_CAT,
     FEAT_CONT,
     FEAT_INT,
@@ -20,7 +20,7 @@ from bark_tpu.forest import (
     gram_from_leaves,
     route_forest,
 )
-from bark_tpu.utils.build import LEAF, build_forest
+from bark_jax.utils.build import LEAF, build_forest
 
 
 def np_route_one(tree_arrays, x, feat_types):
@@ -71,7 +71,7 @@ def test_route_forest_matches_numpy_oracle():
 
     got = np.asarray(route_forest(forest, jnp.asarray(X), jnp.asarray(feat_types)))
 
-    from bark_tpu.utils.build import build_tree_arrays
+    from bark_jax.utils.build import build_tree_arrays
 
     for j, spec in enumerate(specs):
         arrs = build_tree_arrays(spec)
@@ -158,13 +158,13 @@ def test_gram_from_leaves_cross(n, m_pts):
 
 def test_route_forest_select_matches_gather_walk():
     """One-hot transition-matmul routing == the gather-loop walk, on a
-    mixed continuous/categorical prior forest (the acquisition path uses
-    the select form on TPU)."""
+    mixed continuous/categorical prior forest (either may be a platform's
+    router, forest.router_for)."""
     import jax
 
-    from bark_tpu.benchmarks.tree_function import TreeFunction
-    from bark_tpu.fitting.prior import sample_forest_prior
-    from bark_tpu.forest import route_forest, route_forest_select
+    from bark_jax.benchmarks.tree_function import TreeFunction
+    from bark_jax.fitting.prior import sample_forest_prior
+    from bark_jax.forest import route_forest, route_forest_select
 
     bench = TreeFunction(dim=3, cat_dim=2, num_cat=5, m=12, function_seed=3)
     ft = jnp.asarray(bench.domain.feature_types())
@@ -184,14 +184,15 @@ def test_route_forest_select_matches_gather_walk():
 
 def test_route_forest_select_chunked_matches_gather_walk():
     """Past 2048 rows the select router chunks the walk through a lax.map
-    (the unchunked transients OOMed at (128 chains, 4096) on TPU); results
+    (the unchunked transients ran out of device memory at (128 chains,
+    4096)); results
     must stay identical to the gather walk, including the padded tail of a
     non-multiple block count."""
     import jax
 
-    from bark_tpu.benchmarks.tree_function import TreeFunction
-    from bark_tpu.fitting.prior import sample_forest_prior
-    from bark_tpu.forest import route_forest, route_forest_select
+    from bark_jax.benchmarks.tree_function import TreeFunction
+    from bark_jax.fitting.prior import sample_forest_prior
+    from bark_jax.forest import route_forest, route_forest_select
 
     bench = TreeFunction(dim=3, cat_dim=1, num_cat=4, m=8, function_seed=3)
     ft = jnp.asarray(bench.domain.feature_types())

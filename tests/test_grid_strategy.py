@@ -7,16 +7,16 @@ surrogates/bart.py:54-66 (function_samples), BoFire SOBOL fallback sampling.
 import jax.numpy as jnp
 import numpy as np
 
-from bark_tpu.benchmarks.tree_function import TreeFunction
-from bark_tpu.domain import (
+from bark_jax.benchmarks.tree_function import TreeFunction
+from bark_jax.domain import (
     CategoricalInput,
     ContinuousInput,
     Domain,
     IntegerInput,
 )
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.models.surrogate import BARKPriorSurrogate, BARKSurrogate
-from bark_tpu.strategies.tree_kernel import make_strategy
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.models.surrogate import BARKPriorSurrogate, BARKSurrogate
+from bark_jax.strategies.tree_kernel import make_strategy
 
 
 def mixed_domain():
@@ -113,8 +113,8 @@ def test_smac_strategy_body_or_guarded():
     informative error otherwise (parity: strategies/smac.py:19-24)."""
     import pytest
 
-    from bark_tpu.benchmarks import map_benchmark
-    from bark_tpu.strategies.baselines import smac_strategy
+    from bark_jax.benchmarks import map_benchmark
+    from bark_jax.strategies.baselines import smac_strategy
 
     bench = map_benchmark("TreeFunction", dim=2, m=5, function_seed=1)
     try:
@@ -134,8 +134,8 @@ def test_smac_strategy_body_or_guarded():
 def test_relaxed_gp_fits_lengthscales():
     """With MLL fitting on, the relaxed GP recovers that only x_0 matters
     (fitted lengthscale for the dead dimension grows much larger)."""
-    from bark_tpu.domain import ContinuousInput, Domain
-    from bark_tpu.strategies.baselines import RelaxedGPStrategy
+    from bark_jax.domain import ContinuousInput, Domain
+    from bark_jax.strategies.baselines import RelaxedGPStrategy
 
     dom = Domain([
         ContinuousInput("x_0", (0.0, 1.0)),
@@ -168,8 +168,8 @@ def test_entmoot_strategy_body_or_guarded():
     examples/bayes_opt/bark_study_strategy.py:84-89)."""
     import pytest
 
-    from bark_tpu.benchmarks import map_benchmark
-    from bark_tpu.strategies.tree_kernel import make_strategy
+    from bark_jax.benchmarks import map_benchmark
+    from bark_jax.strategies.tree_kernel import make_strategy
 
     bench = map_benchmark("TreeFunction", dim=2, m=5, function_seed=1)
     try:

@@ -2,7 +2,7 @@
 
 Runs a small-budget version of tools/parity/run_parity.py: the reference's
 `_run_bark_sampler_multichain` (bark_sampler.py:120-213, executed pure-Python
-via the numba shim) vs bark_tpu, on identical TreeFunction data, asserting
+via the numba shim) vs bark_jax, on identical TreeFunction data, asserting
 chain-mean posterior moments agree within combined MC error and predictive
 NLPD/MSE within tolerance. The full-budget evidence lives in
 PARITY_RESULTS.md.
@@ -37,7 +37,7 @@ def test_reference_parity_small_budget():
 
 def test_reference_parity_paper_replay():
     """Paper-power parity WITHOUT re-running the shimmed reference
-    (VERDICT r3 #8): only the bark_tpu side runs; the reference chain
+   : only the bark_jax side runs; the reference chain
     means/SEs are replayed from the committed cache
     results/parity_r3/parity_paper.json (same workloads, seed, params).
     ~40 s vs ~260 s for the full --paper harness. Runs in a SUBPROCESS:

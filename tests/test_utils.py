@@ -4,21 +4,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bark_tpu.benchmarks import map_benchmark
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.models.surrogate import BARKSurrogate
-from bark_tpu.utils.checkpoint import (
+from bark_jax.benchmarks import map_benchmark
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.models.surrogate import BARKSurrogate
+from bark_jax.utils.checkpoint import (
     load_model,
     load_surrogate,
     save_model,
     save_surrogate,
 )
-from bark_tpu.utils.diagnostics import (
+from bark_jax.utils.diagnostics import (
     effective_sample_size,
     gelman_rubin,
     mll_trace_summary,
 )
-from bark_tpu.utils.timer import BOLogger, Timer
+from bark_jax.utils.timer import BOLogger, Timer
 
 
 def _fitted(tmp_seed=0):
@@ -68,9 +68,9 @@ def test_surrogate_checkpoint_resume(tmp_path):
 
 
 def test_bart_surrogate_checkpoint_resume(tmp_path):
-    from bark_tpu.fitting.bart import BARTParams
-    from bark_tpu.models.bart import BARTSurrogate
-    from bark_tpu.utils.checkpoint import (
+    from bark_jax.fitting.bart import BARTParams
+    from bark_jax.models.bart import BARTSurrogate
+    from bark_jax.utils.checkpoint import (
         load_bart_surrogate,
         save_bart_surrogate,
     )
@@ -137,7 +137,7 @@ def test_timer_and_bologger():
 def test_plots_render(tmp_path):
     import matplotlib.pyplot as plt
 
-    from bark_tpu.utils.plots import (
+    from bark_jax.utils.plots import (
         plot_bo_trace,
         plot_covariance,
         plot_forest_depths,
@@ -162,7 +162,7 @@ def test_plots_render(tmp_path):
 def test_profiling_hooks(tmp_path):
     """Device trace capture + annotations + throughput meter (SURVEY §5
     tracing/profiling replacement)."""
-    from bark_tpu.utils.profiling import ThroughputMeter, annotate, trace
+    from bark_jax.utils.profiling import ThroughputMeter, annotate, trace
 
     x = jnp.arange(1024.0)
     with trace(str(tmp_path / "trace")):
@@ -184,7 +184,7 @@ def test_tree_rendering(tmp_path):
     (working replacement for the reference's stale plot_trees.py)."""
     import matplotlib.pyplot as plt
 
-    from bark_tpu.utils.plots import format_tree, plot_tree, save_fig
+    from bark_jax.utils.plots import format_tree, plot_tree, save_fig
 
     _, sur, _, _ = _fitted()
     forest = jax.tree.map(lambda a: np.asarray(a)[0, -1], sur.model.forest)

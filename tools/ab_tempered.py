@@ -1,6 +1,6 @@
 """Tempered vs plain chains on the metastable N=512 landscape.
 
-VERDICT r5 item 2: the r4 investigation proved the noiseless N=512
+The r4 investigation proved the noiseless N=512
 TreeFunction posterior is metastable (fresh chains still descending
 after 2000 warmup steps; chains started low escape to noise ~ 1 —
 results/ab_r4/leaf_numerics.md finding 3) and nothing in the repo
@@ -45,7 +45,7 @@ REPLICAS = 8
 
 
 def make_data(seed=0):
-    from bark_tpu.benchmarks.tree_function import TreeFunction
+    from bark_jax.benchmarks.tree_function import TreeFunction
 
     bench = TreeFunction(dim=5, cat_dim=0, num_cat=5, m=50, function_seed=1)
     rng = np.random.default_rng(seed)
@@ -61,9 +61,9 @@ def make_data(seed=0):
 
 
 def run_plain(key, rounds, chunk=250):
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.fitting.sampler import BARKModel, run_bark_sampler_with_trace
-    from bark_tpu.forest import create_empty_forest
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.fitting.sampler import BARKModel, run_bark_sampler_with_trace
+    from bark_jax.forest import create_empty_forest
 
     X, y, bounds, ft = make_data()
     params = SamplerParams(num_chains=PLAIN_CHAINS, num_trees=M)
@@ -105,10 +105,10 @@ def run_plain(key, rounds, chunk=250):
 
 
 def run_tempered(key, rounds, chunk=250):
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.fitting.sampler import BARKModel  # noqa: F401
-    from bark_tpu.forest import create_empty_forest
-    from bark_tpu.parallel.tempering import run_parallel_tempering
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.fitting.sampler import BARKModel  # noqa: F401
+    from bark_jax.forest import create_empty_forest
+    from bark_jax.parallel.tempering import run_parallel_tempering
 
     X, y, bounds, ft = make_data()
     params = SamplerParams(num_chains=1, num_trees=M)
@@ -147,7 +147,7 @@ def main():
     ap.add_argument("--rounds", type=int, default=2000)
     args = ap.parse_args()
 
-    from bark_tpu.utils.diagnostics import (
+    from bark_jax.utils.diagnostics import (
         effective_sample_size,
         gelman_rubin,
     )

@@ -1,11 +1,11 @@
-"""Statistical-parity harness: run the REFERENCE sampler and bark_tpu on
+"""Statistical-parity harness: run the REFERENCE sampler and bark_jax on
 identical data and compare posterior moments + predictive quality.
 
 Reference side: /root/reference/src/bark/fitting/bark_sampler.py:120-213
 (_run_bark_sampler_multichain, executed pure-Python via tools/parity/
 numba_shim) + the forest_predict math of tree_kernels/tree_gps.py:80-113.
-bark_tpu side: bark_tpu.fitting.sampler.run_bark_sampler +
-bark_tpu.models.gp.forest_predict.
+bark_jax side: bark_jax.fitting.sampler.run_bark_sampler +
+bark_jax.models.gp.forest_predict.
 
 Both samplers use their own (different) RNGs, so parity is statistical
 (SURVEY.md §7.1.8): per-chain means are compared through their Monte-Carlo
@@ -36,8 +36,8 @@ REPO = Path(__file__).resolve().parents[2]
 
 
 def make_workload(name: str, n_train: int, n_test: int, seed: int):
-    """Shared (X, y) from bark_tpu's benchmark layer; y standardized once."""
-    from bark_tpu.benchmarks import map_benchmark
+    """Shared (X, y) from bark_jax's benchmark layer; y standardized once."""
+    from bark_jax.benchmarks import map_benchmark
 
     if name == "tree_function":
         bench = map_benchmark("TreeFunction", dim=5, m=20, function_seed=7)
@@ -164,19 +164,19 @@ def _leaf_depth_moments(is_leaf, active, depth):
     return mean, var
 
 
-# --- bark_tpu side ---------------------------------------------------------
+# --- bark_jax side ---------------------------------------------------------
 
 
-def run_bark_tpu(domain, X, y, X_test, params_dict, seed):
+def run_bark_jax(domain, X, y, X_test, params_dict, seed):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from bark_tpu.fitting.params import SamplerParams
-    from bark_tpu.fitting.sampler import BARKModel, run_bark_sampler
-    from bark_tpu.forest import create_empty_forest
-    from bark_tpu.models.gp import forest_predict
+    from bark_jax.fitting.params import SamplerParams
+    from bark_jax.fitting.sampler import BARKModel, run_bark_sampler
+    from bark_jax.forest import create_empty_forest
+    from bark_jax.models.gp import forest_predict
 
     params = SamplerParams(
         warmup_steps=params_dict["warmup_steps"],
@@ -270,17 +270,17 @@ def chain_summary(values):
     return float(values.mean()), float(se)
 
 
-def compare(name, ref, tpu, z=4.0):
+def compare(name, ref, ours, z=4.0):
     """z-score of the difference of chain-mean estimates."""
-    (m_a, se_a), (m_b, se_b) = ref, tpu
+    (m_a, se_a), (m_b, se_b) = ref, ours
     denom = np.sqrt(se_a**2 + se_b**2) + 1e-12
     zval = abs(m_a - m_b) / denom
     return {
         "metric": name,
         "reference": m_a,
         "reference_se": se_a,
-        "bark_tpu": m_b,
-        "bark_tpu_se": se_b,
+        "bark_jax": m_b,
+        "bark_jax_se": se_b,
         "z": float(zval),
         "pass": bool(zval <= z),
     }
@@ -294,55 +294,55 @@ def run_workload(name, n_train, n_test, params_dict, seed=0):
     )
     print(
         f"[{name}] reference done in {ref_stats['wall_s']:.1f}s; "
-        "running bark_tpu...",
+        "running bark_jax...",
         flush=True,
     )
-    tpu_stats, tpu_mu, tpu_var, _ = run_bark_tpu(
+    our_stats, our_mu, our_var, _ = run_bark_jax(
         domain, X, y, X_test, params_dict, seed
     )
-    print(f"[{name}] bark_tpu done in {tpu_stats['wall_s']:.1f}s", flush=True)
+    print(f"[{name}] bark_jax done in {our_stats['wall_s']:.1f}s", flush=True)
 
     rows = [
         compare(
             "posterior noise mean",
             chain_summary(ref_stats["noise_mean"]),
-            chain_summary(tpu_stats["noise_mean"]),
+            chain_summary(our_stats["noise_mean"]),
         ),
         compare(
             "leaves per tree",
             chain_summary(ref_stats["leaves_per_tree"]),
-            chain_summary(tpu_stats["leaves_per_tree"]),
+            chain_summary(our_stats["leaves_per_tree"]),
         ),
         compare(
             "leaf depth mean",
             chain_summary(ref_stats["leaf_depth_mean"]),
-            chain_summary(tpu_stats["leaf_depth_mean"]),
+            chain_summary(our_stats["leaf_depth_mean"]),
         ),
         compare(
             "leaf depth variance",
             chain_summary(ref_stats["leaf_depth_var"]),
-            chain_summary(tpu_stats["leaf_depth_var"]),
+            chain_summary(our_stats["leaf_depth_var"]),
         ),
     ]
     # predictive quality: compare point values (shared test set); NLPD/MSE
     # have no per-chain decomposition here, so use a relative tolerance
     ref_nlpd, ref_mse = mog_nlpd_mse(ref_mu, ref_var, y_test)
-    tpu_nlpd, tpu_mse = mog_nlpd_mse(tpu_mu, tpu_var, y_test)
+    our_nlpd, our_mse = mog_nlpd_mse(our_mu, our_var, y_test)
     rows.append(
         {
             "metric": "test NLPD",
             "reference": ref_nlpd,
-            "bark_tpu": tpu_nlpd,
-            "pass": bool(abs(ref_nlpd - tpu_nlpd) <= 0.35),
+            "bark_jax": our_nlpd,
+            "pass": bool(abs(ref_nlpd - our_nlpd) <= 0.35),
         }
     )
     rows.append(
         {
             "metric": "test MSE",
             "reference": ref_mse,
-            "bark_tpu": tpu_mse,
+            "bark_jax": our_mse,
             "pass": bool(
-                abs(ref_mse - tpu_mse) <= 0.5 * max(ref_mse, tpu_mse, 0.05)
+                abs(ref_mse - our_mse) <= 0.5 * max(ref_mse, our_mse, 0.05)
             ),
         }
     )
@@ -350,7 +350,7 @@ def run_workload(name, n_train, n_test, params_dict, seed=0):
         {
             "metric": "fit wall seconds",
             "reference": ref_stats["wall_s"],
-            "bark_tpu": tpu_stats["wall_s"],
+            "bark_jax": our_stats["wall_s"],
             "pass": True,
         }
     )
@@ -358,17 +358,17 @@ def run_workload(name, n_train, n_test, params_dict, seed=0):
 
 
 def run_workload_replay(name, n_train, n_test, params_dict, cached_rows, seed=0):
-    """Re-run ONLY the bark_tpu side and z-test against cached reference
-    summaries (VERDICT r3 #8): catches bark_tpu statistical regressions at
+    """Re-run ONLY the bark_jax side and z-test against cached reference
+    summaries: catches bark_jax statistical regressions at
     paper power without the ~260 s shimmed-reference run. ``cached_rows``
     must come from a ``run_workload`` invocation with the same workload,
     seed, and params (the committed cache: results/parity_r3/
     parity_paper.json); the reference chain means and their MC standard
-    errors are read from it, the fresh bark_tpu chains supply the other
+    errors are read from it, the fresh bark_jax chains supply the other
     side of the two-sample z-test. Statistically valid because the two
     sides are independent runs either way."""
     domain, X, y, X_test, y_test = make_workload(name, n_train, n_test, seed)
-    tpu_stats, tpu_mu, tpu_var, _ = run_bark_tpu(
+    our_stats, our_mu, our_var, _ = run_bark_jax(
         domain, X, y, X_test, params_dict, seed
     )
     cached = {r["metric"]: r for r in cached_rows}
@@ -381,42 +381,42 @@ def run_workload_replay(name, n_train, n_test, params_dict, cached_rows, seed=0)
         compare(
             "posterior noise mean",
             ref_summary("posterior noise mean"),
-            chain_summary(tpu_stats["noise_mean"]),
+            chain_summary(our_stats["noise_mean"]),
         ),
         compare(
             "leaves per tree",
             ref_summary("leaves per tree"),
-            chain_summary(tpu_stats["leaves_per_tree"]),
+            chain_summary(our_stats["leaves_per_tree"]),
         ),
         compare(
             "leaf depth mean",
             ref_summary("leaf depth mean"),
-            chain_summary(tpu_stats["leaf_depth_mean"]),
+            chain_summary(our_stats["leaf_depth_mean"]),
         ),
         compare(
             "leaf depth variance",
             ref_summary("leaf depth variance"),
-            chain_summary(tpu_stats["leaf_depth_var"]),
+            chain_summary(our_stats["leaf_depth_var"]),
         ),
     ]
     ref_nlpd = cached["test NLPD"]["reference"]
     ref_mse = cached["test MSE"]["reference"]
-    tpu_nlpd, tpu_mse = mog_nlpd_mse(tpu_mu, tpu_var, y_test)
+    our_nlpd, our_mse = mog_nlpd_mse(our_mu, our_var, y_test)
     rows.append(
         {
             "metric": "test NLPD",
             "reference": ref_nlpd,
-            "bark_tpu": tpu_nlpd,
-            "pass": bool(abs(ref_nlpd - tpu_nlpd) <= 0.35),
+            "bark_jax": our_nlpd,
+            "pass": bool(abs(ref_nlpd - our_nlpd) <= 0.35),
         }
     )
     rows.append(
         {
             "metric": "test MSE",
             "reference": ref_mse,
-            "bark_tpu": tpu_mse,
+            "bark_jax": our_mse,
             "pass": bool(
-                abs(ref_mse - tpu_mse) <= 0.5 * max(ref_mse, tpu_mse, 0.05)
+                abs(ref_mse - our_mse) <= 0.5 * max(ref_mse, our_mse, 0.05)
             ),
         }
     )
@@ -443,7 +443,7 @@ FAST_PARAMS = {**DEFAULT_PARAMS, "warmup_steps": 30, "num_samples": 10, "num_cha
 # example_model_config.yaml:2-8) at the reference surrogate's default
 # m=50 trees (data_models/surrogates/bark.py:25) — the z-test's power
 # scales with the budget, so this is the high-power evidence tier
-# (VERDICT r2 #5).
+#.
 PAPER_PARAMS = {
     **DEFAULT_PARAMS,
     "warmup_steps": 1000,
@@ -466,7 +466,7 @@ def main():
         "--replay",
         default=None,
         metavar="CACHE_JSON",
-        help="re-run ONLY the bark_tpu side and z-test against the cached "
+        help="re-run ONLY the bark_jax side and z-test against the cached "
         "reference summaries in CACHE_JSON (e.g. results/parity_r3/"
         "parity_paper.json); prints one JSON line, exit 1 on failure. "
         "Run from a fresh process — the x64 test-suite config changes "
@@ -503,7 +503,7 @@ def main():
     Path(args.json).write_text(json.dumps({"params": params, "results": results}, indent=1))
 
     lines = [
-        "# PARITY_RESULTS — reference (pure-Python Numba source) vs bark_tpu",
+        "# PARITY_RESULTS — reference (pure-Python Numba source) vs bark_jax",
         "",
         "Generated by `python tools/parity/run_parity.py`"
         + (" --fast" if args.fast else "")
@@ -511,7 +511,7 @@ def main():
         "(`/root/reference/src/bark/fitting/bark_sampler.py:120-213`) was "
         "executed un-compiled via `tools/parity/numba_shim.py` (identical "
         "arithmetic — numba only compiles the same numpy code) on data "
-        "generated from bark_tpu's TreeFunction benchmarks; bark_tpu ran the "
+        "generated from bark_jax's TreeFunction benchmarks; bark_jax ran the "
         "same protocol. RNG streams differ by construction (np.random vs "
         "jax.random, SURVEY §7.1.8), so the comparison is statistical: "
         "chain-mean estimates within z ≤ 4 combined MC standard errors; "
@@ -526,7 +526,7 @@ def main():
     for wl, rows in results.items():
         lines.append(f"## {wl}")
         lines.append("")
-        lines.append("| metric | reference | bark_tpu | z | pass |")
+        lines.append("| metric | reference | bark_jax | z | pass |")
         lines.append("|---|---|---|---|---|")
         for r in rows:
             z = f"{r['z']:.2f}" if "z" in r else "—"
@@ -535,13 +535,13 @@ def main():
                 if "reference_se" in r
                 else f"{r['reference']:.4f}"
             )
-            tpu = (
-                f"{r['bark_tpu']:.4f} ± {r['bark_tpu_se']:.4f}"
-                if "bark_tpu_se" in r
-                else f"{r['bark_tpu']:.4f}"
+            ours = (
+                f"{r['bark_jax']:.4f} ± {r['bark_jax_se']:.4f}"
+                if "bark_jax_se" in r
+                else f"{r['bark_jax']:.4f}"
             )
             lines.append(
-                f"| {r['metric']} | {ref} | {tpu} | {z} | "
+                f"| {r['metric']} | {ref} | {ours} | {z} | "
                 f"{'✓' if r['pass'] else '✗'} |"
             )
             all_pass &= r["pass"]

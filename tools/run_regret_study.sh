@@ -1,7 +1,9 @@
 #!/bin/bash
 # BO regret study: seeds 0-4 x {BARK, Random} x {TreeFunction, PestControl}.
 # Each run is its own process (the XLA CPU backend aborts after ~60 compiled
-# programs in one process; see pyproject). Results land in results/regret_r2.
+# programs in one process; see pyproject), run one after another on the CPU
+# (--platform cpu), so no two ever share a card. Results land in
+# results/regret_r2.
 set -u
 cd "$(dirname "$0")/.."
 OUT=${1:-results/regret_r2}

@@ -10,8 +10,8 @@ measure different TRANSIT speeds through a metastable landscape, not
 different stationary laws — large z values here are expected and do not
 adjudicate correctness. The decisive evidence is per-evaluation: the
 leaf identity matches f64 to ~0.02 nats everywhere tested, while the
-dense explicit-inverse MLL is off by ~58 nats on TPU at (N=512,
-nu=0.011); and per-step: one-step kernels are identical wherever the
+dense explicit-inverse MLL was off by ~58 nats on an accelerator at
+(N=512, nu=0.011); and per-step: one-step kernels are identical wherever the
 dense arithmetic is sound.
 
 Kept for tracking how the transit behavior evolves across rounds.
@@ -28,10 +28,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bark_tpu.benchmarks.tree_function import TreeFunction
-from bark_tpu.fitting.params import SamplerParams
-from bark_tpu.fitting.sampler import BARKModel, run_bark_sampler
-from bark_tpu.forest import create_empty_forest
+from bark_jax.benchmarks.tree_function import TreeFunction
+from bark_jax.fitting.params import SamplerParams
+from bark_jax.fitting.sampler import BARKModel, run_bark_sampler
+from bark_jax.forest import create_empty_forest
 
 OUT = pathlib.Path(__file__).resolve().parent.parent / "results" / "ab_r4"
 CHAINS = 16
